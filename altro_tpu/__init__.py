@@ -1,65 +1,42 @@
-"""altro_tpu — a TPU-native AL-iLQR trajectory optimization framework.
+"""The package's former name, kept so existing imports keep working.
 
-A from-scratch JAX/XLA implementation of the capability set of altro-cpp
-(AL-iLQR / ALTRO): nonlinear trajectory optimization with equality,
-inequality, and conic constraints, designed TPU-first — pure functions over
-pytrees, vmap-batched knot-point kernels, `lax.scan` / associative-scan
-Riccati recursions, and `jax.sharding` meshes for multi-chip scaling.
+Every module is the `altro_jax` module itself (same objects, same classes),
+reached under this name: `import <this>.solver.batched` returns
+`altro_jax.solver.batched`.  New code imports `altro_jax`.
 """
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-from .options import LogLevel, SolverOptions
-from .types import SolverStats, SolverStatus, Trajectory, initial_trajectory
-from .problem.costs import Cost, lqr_cost, quadratic_cost
-from .problem.constraints import (
-    Cone,
-    Constraint,
-    EQUALITY,
-    INEQUALITY,
-    circle_constraint,
-    control_bound,
-    goal_constraint,
-)
-from .problem.dynamics import (
-    ContinuousModel,
-    DiscreteModel,
-    discretize,
-    euler_step,
-    rk4_step,
-)
-from .problem.problem import CompiledProblem, Problem, ProblemParams
-from .solver.ilqr import ILQRSolver
-from .solver.al import ALSolver
-from .solver.mpc import MPC, BatchedMPC
+import altro_jax
+from altro_jax import *  # noqa: F401,F403
+from altro_jax import __all__  # noqa: F401
 
-__version__ = "0.1.0"
+_TARGET = altro_jax.__name__
+_PREFIX = __name__ + "."
 
-__all__ = [
-    "ALSolver",
-    "BatchedMPC",
-    "CompiledProblem",
-    "Cone",
-    "Constraint",
-    "ContinuousModel",
-    "Cost",
-    "DiscreteModel",
-    "EQUALITY",
-    "ILQRSolver",
-    "INEQUALITY",
-    "LogLevel",
-    "MPC",
-    "Problem",
-    "ProblemParams",
-    "SolverOptions",
-    "SolverStats",
-    "SolverStatus",
-    "Trajectory",
-    "circle_constraint",
-    "control_bound",
-    "discretize",
-    "euler_step",
-    "goal_constraint",
-    "initial_trajectory",
-    "lqr_cost",
-    "quadratic_cost",
-    "rk4_step",
-]
+
+class _Alias(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves `<this>.x.y` to the already-importable `altro_jax.x.y`."""
+
+    def __init__(self):
+        self._specs = {}
+
+    def find_spec(self, fullname, path=None, target=None):
+        if not fullname.startswith(_PREFIX):
+            return None
+        return importlib.util.spec_from_loader(fullname, self)
+
+    def create_module(self, spec):
+        module = importlib.import_module(_TARGET + spec.name[len(__name__):])
+        # the import system overwrites __spec__ with the alias's; put the
+        # module's own back in exec_module
+        self._specs[module.__name__] = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        module.__spec__ = self._specs.pop(module.__name__)
+
+
+sys.meta_path.insert(0, _Alias())

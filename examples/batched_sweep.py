@@ -17,10 +17,10 @@ if "cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import SolverOptions
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.native import ScenarioGenerator
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax import SolverOptions
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.native import ScenarioGenerator
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
 
 
 def main():

@@ -13,10 +13,10 @@ if "cpu" in sys.argv:
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import SolverOptions
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.models.unicycle import unicycle_rk4
-from altro_tpu.solver.mpc import MPC
+from altro_jax import SolverOptions
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.models.unicycle import unicycle_rk4
+from altro_jax.solver.mpc import MPC
 
 
 def main(steps: int = 60):

@@ -4,12 +4,12 @@
 The r4 fleet workflow (BASELINE config 5): every instance gets its own
 initial state, obstacle layout, and goal reference by giving the param
 leaves a TRAILING batch axis (the `batch_axes` convention); the fused
-Pallas kernels stream per-instance leaves as VMEM tiles, and the compacted
+Pallas kernels read per-instance leaves as lane vectors, and the compacted
 solver's f64 polish finishes the f32 precision-floor residue.  On CPU this
 runs the same program in interpret/scan mode.
 
 Run:  PYTHONPATH=. JAX_PLATFORMS=cpu python examples/randomized_fleet.py
-      (drop JAX_PLATFORMS on a TPU machine)
+      (drop JAX_PLATFORMS on a GPU machine)
 """
 import sys
 
@@ -17,10 +17,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver.batched import to_batch_last
-from altro_tpu.solver.compaction import CompactedALSolver
+from altro_jax import SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver.batched import to_batch_last
+from altro_jax.solver.compaction import CompactedALSolver
 
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 64
 

@@ -10,8 +10,8 @@ if "cpu" in sys.argv:
 
 import numpy as np
 
-from altro_tpu import ALSolver, ILQRSolver, SolverOptions, SolverStatus
-from altro_tpu.models.problems import TripleIntegratorProblem
+from altro_jax import ALSolver, ILQRSolver, SolverOptions, SolverStatus
+from altro_jax.models.problems import TripleIntegratorProblem
 
 
 def main():

@@ -14,8 +14,8 @@ if "cpu" in sys.argv:
 
 import numpy as np
 
-from altro_tpu import ALSolver, LogLevel, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
+from altro_jax import ALSolver, LogLevel, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
 
 
 def main():

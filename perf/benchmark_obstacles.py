@@ -2,7 +2,7 @@
 """Batched three-obstacle unicycle throughput (BASELINE config 3).
 
 This is the EXACT scenario behind the reference's 31.768 ms wall-time
-anchor (`/root/reference/perf/profiler_unicycle.out:3`,
+anchor (altro-cpp's `perf/profiler_unicycle.out:3`,
 `perf/benchmark_unicycle.cpp:18-43` — kThreeObstacles, N=100, control
 bounds + goal + 3 circle constraints, initial penalty 10): the one
 apples-to-apples throughput comparison available, unlike the parking
@@ -11,7 +11,7 @@ shipped bench kernels and reports solves/s and the canonical element's
 obstacle clearance (the reference's own quality check,
 `example_unicycle_test.cpp:76-83`: clearance >= -1 mm at every knot).
 
-Run on TPU: PYTHONPATH=/root/repo:$PYTHONPATH python perf/benchmark_obstacles.py
+Run on the GPU host: python perf/benchmark_obstacles.py
 """
 import json
 import os
@@ -23,19 +23,18 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 import jax
-
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import jax.numpy as jnp
 
 import bench
-from altro_tpu import SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
+from altro_jax import SolverStatus
+from altro_jax.models.problems import UnicycleProblem
 
 
 def main() -> None:
+    from altro_jax.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
     batch = int(os.environ.get("BENCH_BATCH", "4096"))
     dtype = jnp.float32
     defn = UnicycleProblem(scenario="three_obstacles", dtype=dtype)
@@ -43,11 +42,10 @@ def main() -> None:
     # the reference benchmark sets penalty 10 for this scenario
     # (`perf/benchmark_unicycle.cpp:32`).  The obstacle landscape needs the
     # reference-default 20-try line search (the parking config's 6-try cap
-    # drops the fleet from ~90% to ~24% solved — measured config sweep,
-    # perf/obstacle_f32_floor.out); initial penalty 1 with the deep search
-    # is both the best-converging and fastest config of the sweep.  The f32
-    # residue (~11% MAX_PENALTY, all of which solve in f64) is finished by
-    # the f64 polish phase.
+    # leaves most of the fleet unsolved); initial penalty 1 with the deep
+    # search was both the best-converging and fastest config of a sweep.
+    # The f32 residue (lanes at MAX_PENALTY, which solve in f64) is finished
+    # by the f64 polish phase.
     params_b, Zb = bench.make_batch(prob, defn, batch, dtype)
     baseline = 1000.0 / 31.768  # the reference's wall time ON THIS SCENARIO
 
@@ -98,7 +96,7 @@ def main() -> None:
             d = np.sqrt((X0[:, 0] - cx) ** 2 + (X0[:, 1] - cy) ** 2) - r
             clearance = min(clearance, float(d.min()))
         print(json.dumps({
-            "metric": "unicycle_three_obstacle_al_ilqr_solves_per_s_per_chip",
+            "metric": "unicycle_three_obstacle_al_ilqr_solves_per_s_per_device",
             "mode": mode,
             "value": round(batch / dt, 2),
             "unit": "solves/s",

@@ -4,12 +4,11 @@
 The north-star fleet workload: thousands of MPC scenarios with per-instance
 initial states, obstacle layouts, AND goal references solved as one batched
 program — the batched replacement for the reference looping over distinct
-problem objects (`/root/reference/perf/benchmark_unicycle.cpp:45-75`).
+problem objects (altro-cpp's `perf/benchmark_unicycle.cpp:45-75`).
 
-r3 ran this workload on the ~8x-slower XLA scan fallback (per-instance
-params disabled both Pallas kernels).  r4 streams per-instance param leaves
-as VMEM tiles (`ops/forward_pallas.py::param_sig`), so this benchmark runs
-with the SHIPPED kernels — asserted below, not assumed.
+The kernels read per-instance param leaves as lane vectors
+(`ops/forward_pallas.py::param_sig`), so this benchmark runs with the
+SHIPPED kernels — asserted below, not assumed.
 
 Per-instance randomization (seeded, reproducible):
   * x0 ~ U(-0.1, 0.1)^3                      (initial states)
@@ -20,7 +19,7 @@ Per-instance randomization (seeded, reproducible):
 Goal jitter is upward-only so no goal lands inside an inflated obstacle
 (max obstacle reach 2.45 + 0.47 < 3.0): every instance stays feasible.
 
-Run on TPU: PYTHONPATH=/root/repo:$PYTHONPATH python perf/benchmark_randomized.py
+Run on the GPU host: python perf/benchmark_randomized.py
 """
 import json
 import os
@@ -32,17 +31,13 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
 import jax
-
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 import jax.numpy as jnp
 
 import bench
-from altro_tpu import SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver.batched import to_batch_last
+from altro_jax import SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver.batched import to_batch_last
 
 
 def make_randomized_fleet(prob, defn, batch, dtype, seed=0):
@@ -94,6 +89,9 @@ def make_randomized_fleet(prob, defn, batch, dtype, seed=0):
 
 
 def main() -> None:
+    from altro_jax.utils.cache import enable_compilation_cache
+
+    enable_compilation_cache()
     batch = int(os.environ.get("BENCH_BATCH", "4096"))
     dtype = jnp.float32
     defn = UnicycleProblem(scenario="three_obstacles", dtype=dtype)
@@ -135,8 +133,8 @@ def main() -> None:
                 # -0.1% solved)
                 max_iterations_total=120,
             )
-        # scenario config per the measured sweep
-        # (perf/obstacle_f32_floor.out): reference-default 20-try search
+        # scenario config per the obstacle sweep (benchmark_obstacles.py):
+        # reference-default 20-try search
         solver = bench.make_solver(
             prob, batch, initial_penalty=1.0,
             line_search_max_iterations=20, max_stall_iterations=10,
@@ -144,7 +142,7 @@ def main() -> None:
         )
         solver.f64_polish = False
 
-        # the whole point of r4: the randomized fleet runs ON the kernels
+        # the randomized fleet must run ON the kernels
         assert solver._p1._use_fwd(params_b, Zb), "forward kernel not engaged"
         assert solver._p1._use_kernel(
             solver._p1._bwd, params_b, Zb
@@ -179,7 +177,7 @@ def main() -> None:
         # terminal goal error against each instance's OWN randomized goal
         goal_err = np.abs(X[-1] - xf).max(axis=0)
         print(json.dumps({
-            "metric": "randomized_unicycle_obstacle_fleet_solves_per_s_per_chip",
+            "metric": "randomized_unicycle_obstacle_fleet_solves_per_s_per_device",
             "mode": mode,
             "value": round(batch / dt, 2),
             "unit": "solves/s",

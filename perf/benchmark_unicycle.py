@@ -15,10 +15,10 @@ if "cpu" in sys.argv:
 
 import jax.numpy as jnp
 
-from altro_tpu import ALSolver, SolverOptions
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.utils.benchmarking import benchmark
-from altro_tpu.utils.timer import Timer
+from altro_jax import ALSolver, SolverOptions
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.utils.benchmarking import benchmark
+from altro_jax.utils.timer import Timer
 
 
 def run(scenario: str, timer: Timer):

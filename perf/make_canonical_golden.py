@@ -34,8 +34,8 @@ def solve_and_save(opts_kw: dict, fname: str) -> None:
     import jax
     import jax.numpy as jnp
 
-    from altro_tpu import ALSolver, SolverOptions, SolverStatus
-    from altro_tpu.models.problems import UnicycleProblem
+    from altro_jax import ALSolver, SolverOptions, SolverStatus
+    from altro_jax.models.problems import UnicycleProblem
 
     defn = UnicycleProblem(dtype=jnp.float64)
     prob = defn.make_problem(add_constraints=True).compile()

@@ -10,7 +10,7 @@ large fleet of initial states with 1 thread vs all hardware threads and
 report the speedup/efficiency.  Host thread count is whatever the machine
 has (the reference's recorded run used 4).
 
-Run: PYTHONPATH=/root/repo python perf/profile_threadpool.py
+Run: PYTHONPATH=. python perf/profile_threadpool.py
 """
 import json
 import os
@@ -22,7 +22,7 @@ import numpy as np
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _REPO)
 
-from altro_tpu.native import ScenarioGenerator  # noqa: E402
+from altro_jax.native import ScenarioGenerator  # noqa: E402
 
 BATCH = int(os.environ.get("POOL_BATCH", "2000000"))
 DIM = 8

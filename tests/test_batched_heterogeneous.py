@@ -15,7 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import (
+from altro_jax import (
     ALSolver,
     ContinuousModel,
     Problem,
@@ -25,9 +25,9 @@ from altro_tpu import (
     initial_trajectory,
     lqr_cost,
 )
-from altro_tpu.models.triple_integrator import triple_integrator_rk4
-from altro_tpu.problem.dynamics import discretize
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax.models.triple_integrator import triple_integrator_rk4
+from altro_jax.problem.dynamics import discretize
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
 
 B = 8
 

@@ -11,10 +11,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import MPC, BatchedMPC, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.models.unicycle import unicycle_rk4
-from altro_tpu.solver.batched import to_batch_last
+from altro_jax import MPC, BatchedMPC, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.models.unicycle import unicycle_rk4
+from altro_jax.solver.batched import to_batch_last
 
 B = 4
 

@@ -10,9 +10,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import LogLevel, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax import LogLevel, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
 
 
 def _setup(verbose, N=30, B=4):

@@ -11,10 +11,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import ALSolver, Cone, Constraint, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.problem.constraints import cone_jacobian, cone_project
-from altro_tpu.solver.batched import (
+from altro_jax import ALSolver, Cone, Constraint, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.problem.constraints import cone_jacobian, cone_project
+from altro_jax.solver.batched import (
     ALSolverBatched,
     from_batch_last,
     soc_jacobian_bl,
@@ -87,7 +87,7 @@ def test_batched_soc_solve_matches_vmap():
     )
 
     ref = ALSolver(prob, opts)
-    from altro_tpu import ProblemParams
+    from altro_jax import ProblemParams
 
     axes = ProblemParams(x0=0, dynamics=None, costs=None, constraints=None)
     res_ref = jax.vmap(ref.solve, in_axes=(axes, 0, None))(

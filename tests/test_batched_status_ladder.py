@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import (
+from altro_jax import (
     Cost,
     Problem,
     SolverOptions,
@@ -18,9 +18,9 @@ from altro_tpu import (
     initial_trajectory,
     lqr_cost,
 )
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.models.unicycle import unicycle_rk4
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.models.unicycle import unicycle_rk4
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
 
 
 def _parking(B=4, N=30, **opt_kw):

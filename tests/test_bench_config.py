@@ -1,12 +1,12 @@
 """The EXACT shipped bench configuration, executed in CI.
 
-VERDICT r2 weak #3: no test constructed the precise program `bench.py`
-measures (pallas backward + pallas forward, scan_unroll=4, ls-cap 6,
-phase1_iters=14, 1024-lane tail), so config drift in the bench would be
-invisible.  This module imports the solver factory FROM bench.py — the test
-and the measurement cannot diverge — and runs it on CPU (the Pallas kernels
-execute in interpret mode off-TPU, same kernel code) on the real N=100
-parking problem at the minimum kernel-eligible batch.
+No other test constructs the precise program `bench.py` measures (fused
+backward + pallas forward, scan_unroll=4, ls-cap 6, phase1_iters=14,
+1024-lane tail), so config drift in the bench would be invisible.  This
+module imports the solver factory FROM bench.py — the test and the
+measurement cannot diverge — and runs it on CPU (the Pallas kernels execute
+in interpret mode there, same kernel code) on the real N=100 parking
+problem at B=1024.
 
 Asserts the driver metric's parity half against the f64 reference-default
 solve (BASELINE.md:28, golden from perf/make_canonical_golden.py): exact
@@ -26,10 +26,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import jax.numpy as jnp  # noqa: E402
 
 import bench  # noqa: E402
-from altro_tpu import SolverStatus  # noqa: E402
-from altro_tpu.models.problems import UnicycleProblem  # noqa: E402
+from altro_jax import SolverStatus  # noqa: E402
+from altro_jax.models.problems import UnicycleProblem  # noqa: E402
 
-BATCH = 1024  # minimum width keeping both Pallas kernels eligible
+BATCH = 1024
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +59,7 @@ def test_shipped_config_canonical_control_parity(shipped_solve):
     U_ref, X_ref, J_ref = bench.load_reference_golden()
     U0 = np.asarray(res["Z"].U[..., 0], np.float64)
     X0 = np.asarray(res["Z"].X[..., 0], np.float64)
-    # measured 4.6e-4 on CPU-interpret, 4.7e-4 on v5e (perf/diagnose_parity.out)
+    # measured 4.6e-4 on CPU in interpret mode; 7e-4 bounds the stopping ball
     assert float(np.abs(U0 - U_ref).max()) <= 7e-4
     assert float(np.abs(X0 - X_ref).max()) <= 7e-4
     cost0 = float(np.asarray(res["stats"].cost[0], np.float64))
@@ -83,8 +83,8 @@ def test_shipped_config_matches_default_config_canonical(shipped_solve):
     _, res = shipped_solve
     defn = UnicycleProblem(dtype=jnp.float32)
     prob = defn.make_problem(add_constraints=True).compile()
-    from altro_tpu import SolverOptions
-    from altro_tpu.solver.batched import ALSolverBatched
+    from altro_jax import SolverOptions
+    from altro_jax.solver.batched import ALSolverBatched
 
     ref = ALSolverBatched(prob, SolverOptions())
     params_b, Zb = bench.make_batch(prob, defn, BATCH, jnp.float32)

@@ -12,10 +12,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
-from altro_tpu.solver.compaction import CompactedALSolver
+from altro_jax import SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax.solver.compaction import CompactedALSolver
 
 
 def _fleet(B, seed=0, spread=0.4):
@@ -224,7 +224,7 @@ def test_restart_cascade_converts_residue():
     """The fresh-restart cascade (device path) converts instances the
     plain phases leave unSOLVED, without touching already-solved lanes."""
     B = 64
-    import altro_tpu.models.problems as mp
+    import altro_jax.models.problems as mp
 
     defn = mp.UnicycleProblem(scenario="three_obstacles", dtype=jnp.float32)
     defn.N = 30

@@ -11,10 +11,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
-from altro_tpu.solver.compaction import _RESUMABLE, CompactedALSolver
+from altro_jax import SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax.solver.compaction import _RESUMABLE, CompactedALSolver
 
 
 def _fleet_with_infeasible(B=8, bad_goal=(6.0, 6.0, 0.0)):

@@ -9,22 +9,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import (
+from altro_jax import (
     ALSolver,
     Cone,
     Constraint,
     SolverOptions,
     SolverStatus,
 )
-from altro_tpu.problem.constraints import (
+from altro_jax.problem.constraints import (
     cone_jacobian,
     cone_jacobian_diag,
     cone_project,
     cone_violation,
     dual_cone,
 )
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.utils.derivative_check import finite_diff
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.utils.derivative_check import finite_diff
 
 
 def test_basic_cone_projections():

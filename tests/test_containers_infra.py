@@ -17,9 +17,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import SolverOptions
-from altro_tpu.options import LogLevel
-from altro_tpu.types import (
+from altro_jax import SolverOptions
+from altro_jax.options import LogLevel
+from altro_jax.types import (
     Trajectory,
     initial_trajectory,
     stats_init,
@@ -27,8 +27,8 @@ from altro_tpu.types import (
     stats_new_iteration,
     stats_column,
 )
-from altro_tpu.utils.logging import LogEntry, SolverLogger
-from altro_tpu.utils.timer import Timer
+from altro_jax.utils.logging import LogEntry, SolverLogger
+from altro_jax.utils.timer import Timer
 
 
 # --------------------------------------------------------------- trajectory
@@ -118,7 +118,7 @@ def test_logger_bounds_coloring():
     assert "\x1b[31m" in red
     assert "\x1b" not in plain
     # colored strings still pad to the visible width
-    from altro_tpu.utils.logging import _visible_len
+    from altro_jax.utils.logging import _visible_len
 
     assert _visible_len(green) == 10 and _visible_len(red) == 10
 
@@ -235,9 +235,9 @@ def test_stats_capacity_clamp():
 def test_soc_constraint_batched_vmap():
     """Second-order-cone constraint through a BATCH of AL solves (vmap path;
     the batch-native solver intentionally gates SOC out)."""
-    from altro_tpu import ALSolver, Constraint, ProblemParams, SolverStatus
-    from altro_tpu.models.problems import UnicycleProblem
-    from altro_tpu.problem.constraints import Cone
+    from altro_jax import ALSolver, Constraint, ProblemParams, SolverStatus
+    from altro_jax.models.problems import UnicycleProblem
+    from altro_jax.problem.constraints import Cone
 
     B = 4
     defn = UnicycleProblem()

@@ -25,9 +25,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import ALSolver, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax import ALSolver, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,6 @@
 """f64 polish phase of the compacted solver (r4).
 
-Measured basis (perf/obstacle_f32_floor.out): ~11% of the perturbed
+Measured basis: ~11% of the perturbed
 three-obstacle fleet ends MAX_PENALTY in f32 while every such instance
 solves outright in f64 — an f32 precision floor, not an algorithmic
 failure.  `CompactedALSolver(f64_polish=True)` re-solves the residue in
@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver.batched import to_batch_last
-from altro_tpu.solver.compaction import CompactedALSolver
+from altro_jax import SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver.batched import to_batch_last
+from altro_jax.solver.compaction import CompactedALSolver
 
 B = 48  # seed-0 fleet: 8 known f32 failures among the first 48 instances
 

@@ -1,7 +1,7 @@
 """Fused forward-pass Pallas kernel equivalence vs the XLA scan pair.
 
 The kernel (`ops/forward_pallas.py`) fuses closed-loop rollout + total AL
-cost into one VMEM-resident pass; these tests verify it in interpret mode
+cost into one kernel pass; these tests verify it in interpret mode
 against the two-scan oracle (`solver/batched.py`: `closed_loop_rollout` +
 `total_cost`), covering the open-loop (α=K=d=0) path, the divergence guard
 (`ilqr.hpp:468-499` freeze semantics), terminal cost/constraint terms, and
@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import SolverOptions, SolverStatus
-from altro_tpu.models.problems import TripleIntegratorProblem, UnicycleProblem
-from altro_tpu.ops.forward_pallas import ForwardKernel, build_forward_kernel
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax import SolverOptions, SolverStatus
+from altro_jax.models.problems import TripleIntegratorProblem, UnicycleProblem
+from altro_jax.ops.forward_pallas import ForwardKernel, build_forward_kernel
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
 
 B = ForwardKernel.__init__.__defaults__  # noqa: F841 (doc aid only)
 TILE = 1024  # SUB * LANE
@@ -57,6 +57,30 @@ def _gains(fast, params, al, Zb, seed=1):
     rho = jnp.zeros((TILE,), exp["A"].dtype)
     K, d, *_ = fast.riccati_scan(exp, rho)
     return K, d
+
+
+@pytest.mark.parametrize("width", [3, 100])
+def test_odd_width_pads_lanes(setup, width):
+    """Closed-loop rollout + cost at a width that is not a multiple of the
+    lanes per program: padded with copies of the last lane, sliced back,
+    equal to the oracle pair lane for lane."""
+    fast, prob, params, al, Zb, kern = setup
+    assert width % kern.block_for(width)
+    K, d = _gains(fast, params, al, Zb)
+    sub = lambda a: a[..., :width]
+    p = params.replace(x0=sub(params.x0))
+    a = tuple(dict(lam=sub(s["lam"]), rho=sub(s["rho"])) for s in al)
+    Z = Zb.replace(X=sub(Zb.X), U=sub(Zb.U))
+    alpha = jnp.linspace(0.25, 1.0, width)
+    Zbar, valid0, status0 = fast.closed_loop_rollout(p, Z, sub(K), sub(d), alpha)
+    J0 = fast.total_cost(p, a, Zbar)
+    Xn, Ubar, J, valid, status = kern(p, kern.pad_al(a), Z, sub(K), sub(d), alpha)
+    assert Xn.shape == Zbar.X[1:].shape and J.shape == (width,)
+    np.testing.assert_allclose(Xn, Zbar.X[1:], rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(Ubar, Zbar.U, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(J, J0, rtol=1e-10, atol=1e-12)
+    np.testing.assert_array_equal(np.asarray(valid), np.asarray(valid0))
+    np.testing.assert_array_equal(np.asarray(status), np.asarray(status0))
 
 
 def test_open_loop_matches_rollout_plus_cost(setup):
@@ -224,8 +248,8 @@ def test_full_solve_with_pallas_forward_matches_scan():
 
 def test_ineligible_problems_return_none():
     """Structures the kernel can't fuse must fall back (build → None)."""
-    from altro_tpu.problem.costs import Cost
-    from altro_tpu.problem.problem import Problem
+    from altro_jax.problem.costs import Cost
+    from altro_jax.problem.problem import Problem
 
     # SOC cones / opaque constraints are rejected upstream by ALSolverBatched;
     # here: a non-quadratic cost family is ineligible for the kernel.

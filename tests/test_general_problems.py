@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import (
+from altro_jax import (
     ALSolver,
     Cost,
     ILQRSolver,
@@ -23,8 +23,8 @@ from altro_tpu import (
     initial_trajectory,
     lqr_cost,
 )
-from altro_tpu.models.triple_integrator import triple_integrator_rk4
-from altro_tpu.models.unicycle import unicycle, unicycle_rk4
+from altro_jax.models.triple_integrator import triple_integrator_rk4
+from altro_jax.models.unicycle import unicycle, unicycle_rk4
 
 
 def test_nonlinear_cost_ad_expansion_solve():
@@ -90,7 +90,7 @@ def test_heterogeneous_dynamics_families():
     N, h = 20, 0.1
     tri = triple_integrator_rk4(dof=1)  # n=3, m=1
     # a second family: same dims, damped dynamics
-    from altro_tpu import ContinuousModel
+    from altro_jax import ContinuousModel
 
     def damped_fn(params, x, u, t):
         return jnp.concatenate([x[1:2], x[2:3] - params["c"] * x[1:2], u])

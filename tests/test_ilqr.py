@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import ILQRSolver, SolverOptions, SolverStatus
-from altro_tpu.models.problems import TripleIntegratorProblem, UnicycleProblem
+from altro_jax import ILQRSolver, SolverOptions, SolverStatus
+from altro_jax.models.problems import TripleIntegratorProblem, UnicycleProblem
 
 
 @pytest.fixture(scope="module")
@@ -124,7 +124,7 @@ class TestUnicycle:
     def test_two_steps_goldens(self, uni):
         defn, prob, solver, Z0 = uni
         Z = solver.rollout(prob.params, Z0)
-        from altro_tpu.solver.riccati import decrease_regularization
+        from altro_jax.solver.riccati import decrease_regularization
 
         rho = jnp.asarray(0.0)
         drho = jnp.asarray(0.0)

@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import (
+from altro_jax import (
     Problem,
     SolverOptions,
     SolverStatus,
@@ -19,11 +19,11 @@ from altro_tpu import (
     goal_constraint,
     lqr_cost,
 )
-from altro_tpu.models.unicycle import unicycle_rk4
-from altro_tpu.problem.infeasibility import goal_obstacle_certificates
-from altro_tpu.solver.batched import to_batch_last
-from altro_tpu.solver.compaction import CompactedALSolver
-from altro_tpu.types import initial_trajectory
+from altro_jax.models.unicycle import unicycle_rk4
+from altro_jax.problem.infeasibility import goal_obstacle_certificates
+from altro_jax.solver.batched import to_batch_last
+from altro_jax.solver.compaction import CompactedALSolver
+from altro_jax.types import initial_trajectory
 
 
 def _prob(N=30, tf=1.5):

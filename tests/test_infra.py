@@ -1,7 +1,7 @@
 """Infrastructure tests: logger, profiler, benchmarking, checkpointing.
 
 Parity model: `test/common/timer_test.cpp`, `solver_logging_test.cpp`,
-`test/utils/benchmarking_test.cpp`; checkpointing is the TPU-native
+`test/utils/benchmarking_test.cpp`; checkpointing is this framework's
 extension of the reference's in-memory warm-start workflow (SURVEY §5).
 """
 import io
@@ -11,12 +11,12 @@ from contextlib import redirect_stdout
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import ALSolver, LogLevel, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.utils.benchmarking import benchmark
-from altro_tpu.utils.checkpoint import load_pytree, save_pytree
-from altro_tpu.utils.logging import SolverLogger
-from altro_tpu.utils.timer import Timer
+from altro_jax import ALSolver, LogLevel, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.utils.benchmarking import benchmark
+from altro_jax.utils.checkpoint import load_pytree, save_pytree
+from altro_jax.utils.logging import SolverLogger
+from altro_jax.utils.timer import Timer
 
 
 def test_python_timer_hierarchy():

@@ -5,7 +5,7 @@ per-instance obstacle layouts, goal references, and initial states.  The
 reference's loop-of-solves is indifferent to which problem object each
 iteration uses (`perf/benchmark_unicycle.cpp:45-75`); the r3 kernels were
 not — any per-instance cost/constraint/dynamics param leaf fell back to the
-~8x-slower XLA scans.  r4 streams per-instance leaves as VMEM tiles
+slower XLA scans.  The kernels read per-instance leaves as lane vectors
 (`ForwardKernel.param_sig`, specs per signature); these tests verify both
 kernels against the batch-last scan oracles in interpret mode (f64, so
 equality is algorithmic).
@@ -17,11 +17,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.ops.backward_fused_pallas import build_backward_fused_kernel
-from altro_tpu.ops.forward_pallas import Ineligible, build_forward_kernel
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax import SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.ops.backward_fused_pallas import build_backward_fused_kernel
+from altro_jax.ops.forward_pallas import Ineligible, build_forward_kernel
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
 
 TILE = 1024
 
@@ -201,11 +201,11 @@ def test_full_solve_kernels_match_scans_per_instance(fleet):
 
 
 def test_per_instance_dynamics_scalar():
-    """A per-instance dynamics scalar (wheel-speed scale) streams as a VMEM
-    tile; kernel rollout equals the scan rollout."""
-    from altro_tpu.problem.dynamics import ContinuousModel, discretize
-    from altro_tpu.problem.problem import Problem
-    from altro_tpu.problem.costs import lqr_cost
+    """A per-instance dynamics scalar (wheel-speed scale) is read as a lane
+    vector; kernel rollout equals the scan rollout."""
+    from altro_jax.problem.dynamics import ContinuousModel, discretize
+    from altro_jax.problem.problem import Problem
+    from altro_jax.problem.costs import lqr_cost
 
     def fn(params, x, u, t):
         del t
@@ -233,7 +233,7 @@ def test_per_instance_dynamics_scalar():
         dynamics=(dict(cp.params.dynamics[0], scale=scale),),
         x0=jnp.asarray(rng.uniform(-0.1, 0.1, (3, TILE))),
     )
-    from altro_tpu.types import initial_trajectory
+    from altro_jax.types import initial_trajectory
 
     Z0 = initial_trajectory(3, 2, N, 0.1, u0=np.full(2, 0.1), dtype=jnp.float64)
     Zb = to_batch_last(

@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import (
+from altro_jax import (
     ALSolver,
     ILQRSolver,
     Problem,
@@ -18,8 +18,8 @@ from altro_tpu import (
     initial_trajectory,
     lqr_cost,
 )
-from altro_tpu.models.cartpole import cartpole_rk4
-from altro_tpu.models.quadrotor import (
+from altro_jax.models.cartpole import cartpole_rk4
+from altro_jax.models.quadrotor import (
     hover_controls,
     hover_state,
     quadrotor_rk4,

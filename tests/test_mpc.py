@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.models.unicycle import unicycle_rk4
-from altro_tpu.solver.mpc import MPC
+from altro_jax import SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.models.unicycle import unicycle_rk4
+from altro_jax.solver.mpc import MPC
 
 
 def test_mpc_drives_unicycle_to_goal():

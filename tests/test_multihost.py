@@ -1,10 +1,10 @@
 """Emulated multi-host distributed solve: 2 processes x 4 virtual devices.
 
 Exercises the `jax.distributed` initialization path (`parallel/mesh.py:
-init_distributed`) that a real TPU pod uses across hosts — the one line of
+init_distributed`) that a real cluster uses across hosts — the one line of
 the distributed story a single-process virtual mesh cannot cover.  Each
 process owns half the scenario batch; cross-process collectives (Gloo on
-CPU, DCN on real pods) carry the fleet-statistics reductions.
+CPU, NCCL across GPU hosts) carry the fleet-statistics reductions.
 """
 import os
 import socket

@@ -8,7 +8,7 @@ import time
 import numpy as np
 import pytest
 
-from altro_tpu import native
+from altro_jax import native
 
 
 @pytest.fixture(scope="module")

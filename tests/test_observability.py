@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import ALSolver, SolverOptions, SolverStatus
-from altro_tpu.models.problems import TripleIntegratorProblem, UnicycleProblem
-from altro_tpu.options import LogLevel
+from altro_jax import ALSolver, SolverOptions, SolverStatus
+from altro_jax.models.problems import TripleIntegratorProblem, UnicycleProblem
+from altro_jax.options import LogLevel
 
 
 @pytest.fixture(scope="module")

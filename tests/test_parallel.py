@@ -1,6 +1,6 @@
 """Multi-device tests on the virtual 8-CPU mesh.
 
-The TPU-native "distributed" story (SURVEY §2.7): scenario batch sharded
+The multi-device story (SURVEY §2.7): scenario batch sharded
 over a mesh with psum/pmax statistic collectives, and the associative-scan
 Riccati sharded over the horizon axis for long problems.
 """
@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from altro_tpu import ALSolver, ILQRSolver, ProblemParams, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.parallel.mesh import ShardedALSolver, make_mesh
-from altro_tpu.solver import pscan, riccati
+from altro_jax import ALSolver, ILQRSolver, ProblemParams, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.parallel.mesh import ShardedALSolver, make_mesh
+from altro_jax.solver import pscan, riccati
 
 
 @pytest.fixture(scope="module")

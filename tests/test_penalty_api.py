@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import ALSolver, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
+from altro_jax import ALSolver, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
 
 
 @pytest.fixture(scope="module")

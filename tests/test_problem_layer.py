@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import (
+from altro_jax import (
     control_bound,
     goal_constraint,
     circle_constraint,
@@ -16,9 +16,9 @@ from altro_tpu import (
     quadratic_cost,
     discretize,
 )
-from altro_tpu.models.triple_integrator import triple_integrator, triple_integrator_rk4
-from altro_tpu.models.unicycle import unicycle, unicycle_rk4
-from altro_tpu.utils.derivative_check import finite_diff_jacobian
+from altro_jax.models.triple_integrator import triple_integrator, triple_integrator_rk4
+from altro_jax.models.unicycle import unicycle, unicycle_rk4
+from altro_jax.utils.derivative_check import finite_diff_jacobian
 
 
 def test_unicycle_dynamics_and_jacobian():
@@ -107,7 +107,7 @@ def test_quadratic_cost_expansion():
     # value at reference is zero
     np.testing.assert_allclose(cost(xref, uref), 0.0, atol=1e-12)
     # AD expansion agrees with the closed form
-    from altro_tpu.problem.costs import ad_expansion
+    from altro_jax.problem.costs import ad_expansion
 
     ad = ad_expansion(cost.fn, cost.params, x, u)
     np.testing.assert_allclose(ad.J, terms.J, atol=1e-12)
@@ -148,7 +148,7 @@ def test_goal_and_circle_constraints():
 def test_derivative_checker_known_functions():
     """The FD checker itself, against closed-form derivatives
     (`test/utils/derivative_checker_test.cpp` analog)."""
-    from altro_tpu.utils.derivative_check import (
+    from altro_jax.utils.derivative_check import (
         finite_diff,
         finite_diff_gradient,
         finite_diff_hessian,
@@ -183,7 +183,7 @@ def test_dynamics_hessian_vector_product_unicycle():
     (`examples/unicycle.cpp:33-43`): for f = [v cosθ, v sinθ, ω],
     ∂²(bᵀf) has -b0 v cosθ - b1 v sinθ at (θ,θ) and
     -b0 sinθ + b1 cosθ at (θ,v), zero elsewhere."""
-    from altro_tpu.models.unicycle import unicycle
+    from altro_jax.models.unicycle import unicycle
 
     model = unicycle()
     x = jnp.array([0.3, -0.2, 0.7])
@@ -199,7 +199,7 @@ def test_dynamics_hessian_vector_product_unicycle():
     np.testing.assert_allclose(H, expect, atol=1e-12)
 
     # discrete (RK4) variant cross-checked by finite differences
-    from altro_tpu.problem.dynamics import discretize
+    from altro_jax.problem.dynamics import discretize
 
     dm = discretize(model, "rk4")
     h = 0.05

@@ -9,10 +9,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
-from altro_tpu.solver.pscan_batched import inv_unrolled, riccati_pscan_batched
+from altro_jax import SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax.solver.pscan_batched import inv_unrolled, riccati_pscan_batched
 
 
 def _setup(B=4, N=100, seed=0):
@@ -69,8 +69,8 @@ def test_pscan_sweep_matches_sequential_at_zero_reg():
 def test_pscan_sweep_matches_per_instance_pscan_regularized():
     """At rho>0 the oracle is the per-instance pscan (same control-cost
     regularization semantics; see pscan_batched module docstring)."""
-    from altro_tpu.solver.functions import Expansions
-    from altro_tpu.solver.pscan import backward_pass_pscan
+    from altro_jax.solver.functions import Expansions
+    from altro_jax.solver.pscan import backward_pass_pscan
 
     prob, params, Zb = _setup()
     solver = ALSolverBatched(prob, SolverOptions())

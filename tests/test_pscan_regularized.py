@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import ALSolver, ILQRSolver, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax import ALSolver, ILQRSolver, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
 
 J_GOLDEN = 0.0387016567  # unicycle_ilqr_test.cpp:94-96 (unconstrained)
 
@@ -41,10 +41,10 @@ def _patch_pscan(solver):
     implementation (the backward_pass='pscan' OPTION was removed in r5 —
     measured slower everywhere, PARITY.md:149-178 — but the implementation
     stays validated as a research note via these tests)."""
-    from altro_tpu.solver import pscan
+    from altro_jax.solver import pscan
 
     if isinstance(solver, ALSolverBatched):
-        from altro_tpu.solver.pscan_batched import riccati_pscan_batched
+        from altro_jax.solver.pscan_batched import riccati_pscan_batched
 
         solver.riccati_scan = lambda exp, rho: riccati_pscan_batched(
             exp, rho, gain_limit=solver.opts.bp_gain_limit

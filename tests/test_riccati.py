@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import ILQRSolver, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver import pscan, riccati
+from altro_jax import ILQRSolver, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver import pscan, riccati
 
 
 @pytest.fixture(scope="module")

@@ -13,10 +13,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from altro_tpu import SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.parallel.mesh import ShardedBatchedALSolver, make_mesh
-from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
+from altro_jax import SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.parallel.mesh import ShardedBatchedALSolver, make_mesh
+from altro_jax.solver.batched import ALSolverBatched, to_batch_last
 
 B = 64
 

@@ -10,16 +10,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from altro_tpu import ALSolver, ProblemParams, SolverOptions, SolverStatus
-from altro_tpu.models.problems import UnicycleProblem
-from altro_tpu.solver.batched import (
+from altro_jax import ALSolver, ProblemParams, SolverOptions, SolverStatus
+from altro_jax.models.problems import UnicycleProblem
+from altro_jax.solver.batched import (
     ALSolverBatched,
     _HISTORY_COLUMNS,
     batched_stats_column,
     to_batch_last,
 )
-from altro_tpu.solver.compaction import CompactedALSolver
-from altro_tpu.types import _COLUMNS, stats_column
+from altro_jax.solver.compaction import CompactedALSolver
+from altro_jax.types import _COLUMNS, stats_column
 
 
 def _fleet(B, N=30, seed=0, spread=0.3):
@@ -50,7 +50,7 @@ def test_history_columns_match_per_instance_stats():
     res_b = jax.jit(batched.solve)(params_b, Zb)
 
     # per-instance reference: vmap over the batch-leading layout
-    from altro_tpu.solver.batched import from_batch_last
+    from altro_jax.solver.batched import from_batch_last
 
     ref = ALSolver(prob, SolverOptions())
     axes = ProblemParams(x0=0, dynamics=None, costs=None, constraints=None)
